@@ -1,7 +1,7 @@
 #!/bin/bash
 # CI entry point (reference: ci/gpu/build.sh runs pytest on a GPU machine;
 # here the suite runs anywhere on the virtual 8-device CPU mesh, and the
-# bench/dry-run validate the TPU path when hardware is present).
+# gpu-marked leg checks the compiled kernels when a GPU is present).
 set -e
 cd "$(dirname "$0")/.."
 # The CPU XLA compiler intermittently segfaults after several hundred
@@ -11,12 +11,11 @@ python -m pytest tests/test_api.py tests/test_category.py \
   tests/test_column.py tests/test_edge.py tests/test_format.py \
   tests/test_fuzz.py tests/test_multihost.py tests/test_segments.py \
   tests/test_datetime_parity.py tests/test_ordered_engine.py \
-  tests/test_shift_compact.py tests/test_pallas_scan.py \
+  tests/test_shift_compact.py tests/test_movers.py tests/test_route.py \
   -q --junitxml=test-results-a.xml "$@"
 python -m pytest tests/test_ops.py tests/test_parallel.py \
   tests/test_regex.py tests/test_replace_multi.py tests/test_split.py \
-  tests/test_text.py tests/test_pallas_window.py \
-  tests/test_pallas_route.py tests/test_backref_device.py \
+  tests/test_text.py tests/test_layout.py tests/test_backref_device.py \
   tests/test_span_bits.py \
   -q --junitxml=test-results-b.xml "$@"
 python - <<'EOF'
@@ -42,17 +41,6 @@ REFSEL=$(grep -v '^#' tests/refcompat/expected_failures.txt | \
   tr '\n' ' ')
 tests/refcompat/run.sh $REFSEL
 
-# real-hardware leg: runs in its own process with the default (TPU)
-# backend.  Off-hardware the suite deselects itself (pytest exit 5 = no
-# tests collected -> OK); ON hardware, failures fail CI.
-if [ "${CUSTRINGS_TPU_TESTS:-1}" != "0" ]; then
-  set +e
-  CUSTRINGS_TPU_LEG=1 python -m pytest tests/tpu -q \
-    --junitxml=test-results-tpu.xml
-  tpu_rc=$?
-  set -e
-  if [ "$tpu_rc" != "0" ] && [ "$tpu_rc" != "5" ]; then
-    echo "TPU test leg failed (exit $tpu_rc)" >&2
-    exit "$tpu_rc"
-  fi
-fi
+# GPU leg: the gpu-marked tests on the card (they skip without a GPU).
+# chip_smoke.py runs the same tests after the main path at full size.
+CUSTRINGS_TESTS_ON_DEVICE=1 python -m pytest tests -m gpu -q

@@ -1,50 +1,50 @@
-"""custrings_tpu — a TPU-native columnar string engine.
+"""Deprecated alias of :mod:`custrings`, the package's former name.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of RAPIDS cuStrings
-(nvstrings / nvcategory / nvtext).  Strings live as flat Arrow-style tensors
-(bytes + offsets + validity) sharded over TPU meshes; every operator is a
-jit-compiled data-parallel program instead of a one-thread-per-string kernel.
-
-Public modules (mirroring the reference's Python surface):
-    custrings_tpu.nvstrings   vectorized string ops
-    custrings_tpu.nvcategory  string dictionary encoding
-    custrings_tpu.nvtext      token-level utilities
+Importing it warns once and yields the very module objects of
+``custrings``: the alias package itself, and every module below it
+(``<alias>.nvstrings is custrings.nvstrings``), so code written against
+the former name keeps working and shares one set of caches.
 """
 
-from .column import StringColumn  # noqa: F401
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.2.0"
+import custrings
 
-
-def _instrument():
-    """Wire utils.tracing into every public op (VERDICT r1: the tracing
-    module must actually measure the op layer, not exist beside it)."""
-    import importlib
-
-    from .utils import tracing
-
-    for modname, prefix in [
-        ("ops.array", "array"),
-        ("ops.attrs", "attrs"),
-        ("ops.case", "case"),
-        ("ops.combine", "combine"),
-        ("ops.convert", "convert"),
-        ("ops.datetime_k", "datetime"),
-        ("ops.find", "find"),
-        ("ops.modify", "modify"),
-        ("ops.pad", "pad"),
-        ("ops.split", "split"),
-        ("ops.strip", "strip"),
-        ("ops.substr", "substr"),
-        ("ops.unique", "unique"),
-        ("ops.urlencode", "urlencode"),
-        ("regex.ops", "regex"),
-        ("text.token", "text"),
-        ("text.distance", "text"),
-        ("text.ngram", "text"),
-    ]:
-        mod = importlib.import_module(f".{modname}", __name__)
-        tracing.instrument_module(mod, prefix)
+warnings.warn(
+    f"{__name__} is deprecated; import custrings instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
 
 
-_instrument()
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves `<alias>.x.y` to the already-importable `custrings.x.y`."""
+
+    def __init__(self, alias: str):
+        self.alias = alias
+        self._specs = {}
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(self.alias + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(
+            "custrings" + spec.name[len(self.alias):]
+        )
+        self._specs[module.__name__] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the real module already ran; importlib stamped the alias spec
+        # on it, so give it back its own
+        module.__spec__ = self._specs.pop(module.__name__)
+
+
+sys.meta_path.insert(0, _AliasFinder(__name__))
+sys.modules[__name__] = custrings

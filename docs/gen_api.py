@@ -62,9 +62,9 @@ def emit_module_fns(out, mod, title, names=None):
 
 
 def main():
-    from custrings_tpu import nvstrings as nvs_mod
-    from custrings_tpu import nvcategory as nvc_mod
-    from custrings_tpu import nvtext as nvt_mod
+    from custrings import nvstrings as nvs_mod
+    from custrings import nvcategory as nvc_mod
+    from custrings import nvtext as nvt_mod
 
     out = [
         "# API reference\n",

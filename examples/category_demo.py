@@ -1,24 +1,17 @@
 """nvcategory walkthrough — port of the reference notebook
 python/notebooks/category_demo.ipynb (keyset build, add_strings,
 indexes_for_key, gather) and category_merge1.ipynb (merge_category
-append-preserving semantics), on the TPU engine.
+append-preserving semantics),.
 
 Run:  python examples/category_demo.py
 """
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from custrings_tpu import nvcategory, nvstrings
+from custrings import nvcategory, nvstrings
 
 
 def demo_basic():

@@ -5,20 +5,13 @@ order semantics, merge_and_remap re-sorts), and chain merges.
 
 Run:  python examples/category_merge.py
 """
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from custrings_tpu import nvcategory, nvstrings
+from custrings import nvcategory, nvstrings
 
 
 def show(tag, cat):

@@ -4,20 +4,13 @@ test_substr.ipynb and test_case.ipynb (the early "cudastrings" API demos).
 
 Run:  python examples/compare_strip_substr.py
 """
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from custrings_tpu import nvstrings
+from custrings import nvstrings
 
 
 def compare_demo():

@@ -1,23 +1,16 @@
 """Conversions, padding, and concatenation walkthrough — port of the
 reference notebooks python/notebooks/test_convert.ipynb,
-test_pad.ipynb, and test_combine.ipynb on the TPU engine.
+test_pad.ipynb, and test_combine.ipynb.
 
 Run:  python examples/convert_pad_combine.py
-      CUSTRINGS_PLATFORM=cpu python examples/convert_pad_combine.py
+      JAX_PLATFORMS=cpu python examples/convert_pad_combine.py
 """
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from custrings_tpu import nvstrings
+from custrings import nvstrings
 
 # ---- test_convert.ipynb: number parsing + formatting round trips -------
 nums = nvstrings.to_device(

@@ -1,22 +1,12 @@
 """Tweet regex workload (BASELINE config 3): hashtags/mentions/urls."""
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
 
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from custrings_tpu import nvstrings
+from benchmarks.corpus import tweets as make_tweets
+from custrings import nvstrings
 
-path = "/root/reference/data/tweets.csv"
-if os.path.exists(path):
-    tweets = nvstrings.from_csv(path, 7)[:200]
-else:
-    tweets = nvstrings.to_device(["hello #world from @me http://x.co"])
+tweets = nvstrings.to_device(make_tweets(200, seed=0))
 
 hashtags = tweets.findall_record(r"#\w+")
 mentions = tweets.count(r"@\w+")

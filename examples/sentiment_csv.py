@@ -5,13 +5,6 @@ via hash joins — all column ops on device.
 
 Run:  python examples/sentiment_csv.py
 """
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
 
 import os
 import sys
@@ -20,7 +13,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from custrings_tpu import nvstrings, nvtext
+from custrings import nvstrings, nvtext
 
 
 SENTENCES = [

@@ -1,16 +1,9 @@
-"""The README tips demo (reference README.md:12-49) on the TPU engine."""
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
+"""The README tips demo (reference README.md:12-49)."""
 
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from custrings_tpu import nvcategory, nvstrings
+from custrings import nvcategory, nvstrings
 
 lines = [
     "16.99,1.01,Female,No,Sun,Dinner,2",

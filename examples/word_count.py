@@ -1,22 +1,15 @@
 """WordCount notebook equivalent (reference python/notebooks/WordCount)."""
-import os as _os
-
-if _os.environ.get("CUSTRINGS_PLATFORM"):  # e.g. cpu when no TPU reachable
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", _os.environ["CUSTRINGS_PLATFORM"])
-
 
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from collections import Counter
 
-from custrings_tpu import nvstrings, nvtext
+from custrings import nvstrings, nvtext
 
-path = "/root/reference/data/poem.txt"
-text = open(path, encoding="utf-8").read().splitlines() if os.path.exists(path) else [
+text = [
     "the quick brown fox", "jumped over the lazy dog",
+    "the dog slept and the fox ran",
 ]
 s = nvstrings.to_device(text).lower()
 tokens = nvtext.tokenize(s)

@@ -22,7 +22,7 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    # initialize BEFORE importing custrings_tpu: the package import wires
+    # initialize BEFORE importing custrings: the package import wires
     # tracing into ops, which touches the backend
     jax.distributed.initialize(
         os.environ["COORDINATOR_ADDRESS"],
@@ -30,7 +30,7 @@ def main():
         process_id=pid,
     )
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from custrings_tpu.parallel import runtime
+    from custrings.parallel import runtime
 
     assert runtime.init_runtime(), "distributed init failed"
     assert jax.process_count() == nproc
@@ -45,7 +45,7 @@ def main():
     values, n_keys = sc.categorize()
     mask, total = sc.contains_re(r"\bcat\b")
 
-    # hybrid (dcn, ici) mesh builds too
+    # hybrid (hosts, local devices) mesh builds too
     hm = runtime.hybrid_mesh()
     assert hm.devices.shape == (nproc, 4)
 

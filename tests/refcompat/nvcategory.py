@@ -1,1 +1,1 @@
-from custrings_tpu.nvcategory import *  # noqa
+from custrings.nvcategory import *  # noqa

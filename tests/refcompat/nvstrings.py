@@ -2,8 +2,8 @@ import sys
 sys.path.insert(0, "/root/repo")
 import jax
 jax.config.update("jax_platforms", "cpu")
-from custrings_tpu.nvstrings import *  # noqa
-from custrings_tpu.nvstrings import nvstrings  # noqa
+from custrings.nvstrings import *  # noqa
+from custrings.nvstrings import nvstrings  # noqa
 
 # the reference suite opens its data files relative to its own tests dir
 import os as _os

@@ -1,1 +1,1 @@
-from custrings_tpu.nvtext import *  # noqa
+from custrings.nvtext import *  # noqa

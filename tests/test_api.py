@@ -4,7 +4,7 @@ config 1) plus convert/datetime/stats coverage."""
 import numpy as np
 import pytest
 
-from custrings_tpu import nvcategory, nvstrings, nvtext
+from custrings import nvcategory, nvstrings, nvtext
 
 
 TIPS_SAMPLE = [
@@ -179,7 +179,7 @@ def test_ipc_roundtrip():
 
 
 def test_tracing():
-    from custrings_tpu.utils import tracing
+    from custrings.utils import tracing
 
     tracing.reset()
     with tracing.enabled():
@@ -189,12 +189,25 @@ def test_tracing():
     assert "upper" in rep
 
 
-def test_from_csv_tweets_reference():
-    # parity with python/tests/test_memory.py::test_from_csv
-    tweets = nvstrings.from_csv("/root/reference/data/tweets.csv", 7)
-    got = tweets[:5].to_host()
-    assert got[0] == "@Bill_Porter nice to know that your site is back :-)"
+def test_from_csv_tweets_reference(tmp_path):
+    # parity with python/tests/test_memory.py::test_from_csv, on a CSV
+    # written from the seeded tweet generator: the text is column 7, the
+    # header line is skipped, empty fields read as null, and only the
+    # OUTER quote pair is stripped (doubled quotes inside stay verbatim)
+    from benchmarks.corpus import tweets
+
+    rows = tweets(40, 11)
+    rows[3] = 'a, b ""Not Found"" page even in homepage'
+    path = tmp_path / "tweets.csv"
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("id,a,b,c,d,e,f,text\n")
+        for i, r in enumerate(rows):
+            text = '"%s"' % r if r and "," in r else (r or "")
+            f.write(f"{i},x,y,z,1,2,3,{text}\n")
+    got = nvstrings.from_csv(str(path), 7).to_host()
+    assert got == [r if r else None for r in rows]
     assert got[3].endswith('""Not Found"" page even in homepage')
+    assert nvstrings.from_csv(str(path), 7, 5).to_host() == got[:5]
 
 
 def test_from_strings_concat():
@@ -326,7 +339,7 @@ def test_find_reference_vectors():
 def test_timestamp2int_tz_device():
     # %z is fixed +HHMM; the reference ADDS the offset
     # (datetime.cu:84 {'z',5}; :261-270; :308-318) — we mirror that.
-    from custrings_tpu import nvstrings as nvs
+    from custrings import nvstrings as nvs
 
     s = nvs.to_device(
         [
@@ -341,3 +354,29 @@ def test_timestamp2int_tz_device():
     assert got == [base + 330 * 60, base - 90 * 60, base, 0]
     got_m = list(s.timestamp2int("%Y-%m-%dT%H:%M:%S%z", "m"))[:2]
     assert got_m == [base // 60 + 330, base // 60 - 90]
+
+
+def test_former_package_name_is_a_deprecated_alias():
+    # the package's former name is the one other top-level package
+    # beginning with "custrings_" beside it
+    import importlib
+    import os
+    import pkgutil
+    import sys
+
+    import custrings
+
+    root = os.path.dirname(os.path.dirname(custrings.__file__))
+    (old,) = [m.name for m in pkgutil.iter_modules([root])
+              if m.ispkg and m.name.startswith("custrings_")]
+    sys.modules.pop(old, None)
+    with pytest.warns(DeprecationWarning, match="import custrings"):
+        alias = importlib.import_module(old)
+    assert alias is custrings
+    for sub in ("nvstrings", "parallel.dist", "ops.unique"):
+        assert importlib.import_module(f"{old}.{sub}") is (
+            importlib.import_module(f"custrings.{sub}")
+        )
+    mod = importlib.import_module(f"{old}.nvcategory")
+    assert mod.__spec__.name == "custrings.nvcategory"
+    assert mod.from_strings(nvstrings.to_device(["b", "a"])).keys_size() == 2

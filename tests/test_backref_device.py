@@ -11,8 +11,8 @@ import re
 import numpy as np
 import pytest
 
-from custrings_tpu import column
-from custrings_tpu.regex import ops as rx
+from custrings import column
+from custrings.regex import ops as rx
 
 
 def _oracle(pat, tpl, strs):

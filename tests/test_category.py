@@ -3,9 +3,9 @@ test_category_numeric.py expectations."""
 
 import numpy as np
 
-from custrings_tpu import category as C
-from custrings_tpu import column
-from custrings_tpu import numeric as NC
+from custrings import category as C
+from custrings import column
+from custrings import numeric as NC
 
 
 def dev(strs):
@@ -212,7 +212,7 @@ def test_truncated_prefix_escalation():
     # ADVICE r1 (high): rows sharing a 64B truncated prefix with different
     # lengths must be ordered by the first differing byte PAST the prefix,
     # not by length; the escalation check must fire for this shape.
-    import custrings_tpu.nvcategory as nvcategory
+    import custrings.nvcategory as nvcategory
 
     c = nvcategory.to_device(["x" * 64 + "b", "x" * 64 + "ac"])
     assert list(c.keys()) == ["x" * 64 + "ac", "x" * 64 + "b"]
@@ -229,7 +229,7 @@ def test_indexes_for_key_absent():
     # ADVICE r1 (low): absent key must not alias the removed-key sentinel.
     import numpy as np
 
-    import custrings_tpu.nvcategory as nvcategory
+    import custrings.nvcategory as nvcategory
 
     c = nvcategory.to_device(["a", "b", "a"])
     assert len(np.asarray(c.indexes_for_key("zzz"))) == 0
@@ -239,7 +239,7 @@ def test_gather_out_of_range_raises():
     # ADVICE r1 (low): out-of-range gather raises instead of clamping.
     import pytest
 
-    import custrings_tpu.nvstrings as nvstrings
+    import custrings.nvstrings as nvstrings
 
     s = nvstrings.to_device(["a", "b", "c"])
     with pytest.raises(IndexError):
@@ -252,8 +252,8 @@ def test_merge_category_chained_unsorted_keyset():
     # NVCategory.cu:1223); a second merge and value lookups must still
     # find existing keys (round 2: searchsorted silently missed them and
     # appended duplicates).
-    from custrings_tpu import category as catm
-    from custrings_tpu import column
+    from custrings import category as catm
+    from custrings import column
 
     c1 = catm.from_strings(column.from_host_strings(["a", "a", "d", "c", "c", "e"]))
     c2 = catm.from_strings(column.from_host_strings(["a", "b", "b", "f", "c", "f"]))
@@ -278,8 +278,8 @@ def test_hashed_encode_matches_sorted_encode():
     """Round-4 hash-grouped encode vs the radix-sorted oracle."""
     import numpy as np
 
-    from custrings_tpu import column
-    from custrings_tpu.ops import unique as unique_mod
+    from custrings import column
+    from custrings.ops import unique as unique_mod
 
     rng = np.random.default_rng(77)
     pool = ["apple", "pear", "b" * 80, "b" * 80 + "x", "", "zz", None,
@@ -309,16 +309,21 @@ def test_hashed_encode_matches_sorted_encode():
         assert bool(amb_h) == bool(amb_s), trial
 
 
-def test_key_words_stream_parity(monkeypatch):
-    monkeypatch.setenv("CUSTRINGS_STREAM_VIEW", "1")
+def test_key_words_stream_parity():
+    """Packed big-endian key words vs a numpy packing of each row."""
     import numpy as np
 
-    from custrings_tpu import column
-    from custrings_tpu.ops import array
+    from custrings import column
+    from custrings.ops import array
 
     strs = ["alpha", "be", "", "x" * 37, "héllo🎉", "alpha"]
     col = column.from_host_strings(strs)
     w = 40
-    got = np.asarray(array._key_words_stream(col, w))
-    want = np.asarray(array._key_words_xla(col, w))
-    np.testing.assert_array_equal(got, want)
+    got = np.asarray(array._key_words(col, w))
+    for r, s in enumerate(strs):
+        b = np.zeros(w, np.uint8)
+        e = np.frombuffer(s.encode(), np.uint8)
+        b[: e.size] = e
+        want = b.reshape(-1, 4).astype(np.uint32)
+        want = (want[:, 0] << 24) | (want[:, 1] << 16) | (want[:, 2] << 8) | want[:, 3]
+        np.testing.assert_array_equal(got[r], want)

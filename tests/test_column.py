@@ -8,8 +8,8 @@ round-trips.
 import numpy as np
 import pytest
 
-from custrings_tpu import column
-from custrings_tpu.ops import attrs, layout
+from custrings import column
+from custrings.ops import attrs, layout
 
 CORPUS = ["apple", "", None, "pear", "siamésé", "日本語テスト", "a b"]
 

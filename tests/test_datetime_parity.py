@@ -10,8 +10,8 @@ reference's compiler map — including the quirks: %y = +1900 / -1900,
 import numpy as np
 import pytest
 
-from custrings_tpu.column import from_host_strings, to_host_strings
-from custrings_tpu.ops import datetime_k as dk
+from custrings.column import from_host_strings, to_host_strings
+from custrings.ops import datetime_k as dk
 
 FORMATS = [
     (None, "s"),

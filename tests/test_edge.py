@@ -4,9 +4,9 @@ cpp/src/NVStrings.cu size checks; we mirror that at the driver level)."""
 
 import pytest
 
-import custrings_tpu.nvcategory as nvc
-import custrings_tpu.nvstrings as nvs
-import custrings_tpu.nvtext as nvt
+import custrings.nvcategory as nvc
+import custrings.nvstrings as nvs
+import custrings.nvtext as nvt
 
 CALLS = [
     ("lower", lambda s: s.lower()),

@@ -9,8 +9,8 @@ remain in-tree purely as oracles for these tests.
 import numpy as np
 import pytest
 
-from custrings_tpu.column import to_host_strings
-from custrings_tpu.ops import convert, datetime_k
+from custrings.column import to_host_strings
+from custrings.ops import convert, datetime_k
 
 
 def test_itos_device_exact():

@@ -9,7 +9,7 @@ import re
 
 import numpy as np
 
-import custrings_tpu.nvstrings as nvs
+import custrings.nvstrings as nvs
 
 ALPH = ["a", "b", "Z", "é", "中", "\U0001F389", " ", "0", "_", "\x00"]
 

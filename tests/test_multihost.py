@@ -1,7 +1,7 @@
 """Multi-process simulation harness (SURVEY §4; VERDICT r1 missing item 4).
 
 Spawns N real OS processes, each a JAX "host" with 4 virtual CPU devices,
-joined via jax.distributed + gloo collectives — the same code path a TPU
+joined via jax.distributed + gloo collectives — the same code path a GPU
 pod job uses (minus the fabric).  Verifies the collective dictionary
 build and regex count produce single-chip-identical results across the
 process boundary.
@@ -48,8 +48,8 @@ def test_multiprocess_collectives(tmp_path, nproc):
     )
     import jax
 
-    from custrings_tpu import column
-    from custrings_tpu.ops.unique import dictionary_encode
+    from custrings import column
+    from custrings.ops.unique import dictionary_encode
 
     col = column.from_host_strings(strs)
     keys, values = dictionary_encode(col)

@@ -5,8 +5,8 @@ test_replace, test_url.py...)."""
 import numpy as np
 import pytest
 
-from custrings_tpu import column
-from custrings_tpu.ops import (
+from custrings import column
+from custrings.ops import (
     array,
     case,
     combine,
@@ -360,15 +360,49 @@ def test_url_decode():
     assert got == exp
 
 
+def _murmur3_32(data: bytes, seed: int = 31) -> int:
+    """Pure-Python MurmurHash3_x86_32 (the reference's hash)."""
+    c1, c2, m32 = 0xCC9E2D51, 0x1B873593, 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & m32
+
+    h = seed
+    nb = len(data) // 4
+    for i in range(nb):
+        k = int.from_bytes(data[4 * i : 4 * i + 4], "little")
+        k = rotl((k * c1) & m32, 15) * c2 & m32
+        h = (rotl(h ^ k, 13) * 5 + 0xE6546B64) & m32
+    tail = data[4 * nb :]
+    k = 0
+    for i, b in enumerate(tail):
+        k |= b << (8 * i)
+    if tail:
+        k = rotl((k * c1) & m32, 15) * c2 & m32
+        h ^= k
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & m32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & m32
+    return h ^ (h >> 16)
+
+
 def test_pallas_hash_matches_jnp():
-    from custrings_tpu.ops.convert import hash_mm3
-    from custrings_tpu.ops.pallas_hash import hash_mm3_pallas
+    """nvstrings.hash (ops/convert.hash_mm3) vs a pure-Python MurmurHash3."""
+    from custrings import nvstrings
+    from custrings.ops.convert import hash_mm3
 
     corpus = ["hello", "", None, "a", "abc", "x" * 300, "héllo wörld" * 10]
     col = dev(corpus)
-    a = np.asarray(hash_mm3(col))
-    b = np.asarray(hash_mm3_pallas(col))
-    assert a.tolist() == b.tolist()
+    got = np.asarray(hash_mm3(col)).tolist()
+    for g, s in zip(got, corpus):
+        if s is not None:
+            assert g == _murmur3_32(s.encode()), s
+    via_api = nvstrings.to_device(corpus).hash()
+    assert via_api == [
+        None if s is None else _murmur3_32(s.encode()) for s in corpus
+    ]
 
 
 def test_wrap_vs_pandas():
@@ -453,7 +487,7 @@ def test_case_multicodepoint_first_char_rule():
     # the reference's 16-bit charcases[] maps multi-codepoint casings to
     # the FIRST codepoint of the full casing (charcases.h: 0xDF -> 'S',
     # 0x149 -> 0x2BC, 0x390 -> 0x399); mirrored here
-    from custrings_tpu import nvstrings as nvs
+    from custrings import nvstrings as nvs
 
     got = nvs.to_device(["ß", "ŉo", "ΐ", "straße"]).upper().to_host()
     assert got == ["S", "ʼO", "Ι", "STRASE"]
@@ -465,8 +499,8 @@ def test_replace_growth_variants():
     and bordered patterns (general plan route)."""
     import numpy as np
 
-    from custrings_tpu.column import from_host_strings, to_host_strings
-    from custrings_tpu.ops import modify
+    from custrings.column import from_host_strings, to_host_strings
+    from custrings.ops import modify
 
     rng = np.random.default_rng(9)
     al = list("ab the x,aa")

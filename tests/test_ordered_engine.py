@@ -6,9 +6,9 @@ quantifiers, captures, anchors, word boundaries, counted repeats."""
 import numpy as np
 import pytest
 
-from custrings_tpu import column
-from custrings_tpu.regex.ops import get_program
-from custrings_tpu.ops import layout
+from custrings import column
+from custrings.regex.ops import get_program
+from custrings.ops import layout
 
 CORPUS = [
     "5", "hej", "\t \n", "12345", "\\", "d", "c:\\Tools", "+27", "1c2",

@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from custrings_tpu import column
-from custrings_tpu.ops.unique import dictionary_encode
-from custrings_tpu.parallel import dist
+from custrings import column
+from custrings.ops.unique import dictionary_encode
+from custrings.parallel import dist
 
 
 def make_mesh(n):
@@ -45,7 +45,7 @@ def test_distributed_contains():
     col = column.from_host_strings(strs)
     n_dev = 4
     mesh = make_mesh(n_dev)
-    from custrings_tpu.ops import layout
+    from custrings.ops import layout
 
     chars, nch = layout.char_matrix(col)
     n = col.size
@@ -67,7 +67,7 @@ def test_distributed_unique_tokens():
     col = column.from_host_strings(strs)
     mesh = make_mesh(2)
     ids, n_unique = dist.distributed_unique_tokens(col, mesh)
-    from custrings_tpu.text.token import unique_tokens
+    from custrings.text.token import unique_tokens
 
     exp = unique_tokens(col, None)
     assert int(n_unique) == exp.size
@@ -115,7 +115,7 @@ def test_sharded_column_end_to_end(n_dev):
     replace (growing) + contains + categorize + unique_tokens."""
     import re
 
-    from custrings_tpu.parallel.sharded import ShardedStringColumn
+    from custrings.parallel.sharded import ShardedStringColumn
 
     strs = (
         ["the cat sat on the mat #tag", "no match here", None, ""] * 6
@@ -158,7 +158,7 @@ def test_sharded_column_end_to_end(n_dev):
 
 
 def test_sharded_unique_tokens_delimiter():
-    from custrings_tpu.parallel.sharded import ShardedStringColumn
+    from custrings.parallel.sharded import ShardedStringColumn
 
     strs = ["a,b,c", "b,c", None, "c,d,,e"] * 4
     col = column.from_host_strings(strs)
@@ -170,3 +170,31 @@ def test_sharded_unique_tokens_delimiter():
         if s:
             toks.update(t for t in s.split(",") if t)
     assert int(n_unique) == len(toks)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 8, 40])
+def test_shard_rows_matches_shard_column(n_shards):
+    # host-row shards equal the device-column shards, padding included
+    # (40 shards over 31 rows leaves trailing all-padding shards)
+    col = column.from_host_strings(CORPUS)
+    want = [np.asarray(jax.device_get(x))
+            for x in dist.shard_column(col, n_shards)]
+    got = dist.shard_rows(CORPUS, n_shards)
+    for w, g in zip(want, got):
+        assert isinstance(g, np.ndarray)
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_shard_global_one_shard_per_device():
+    from custrings.parallel import runtime
+
+    mesh = make_mesh(4)
+    sc = runtime.shard_global(CORPUS, mesh)
+    assert sc.size() == len(CORPUS)
+    for x in (sc.data, sc.offsets, sc.validity, sc.alive):
+        owners = sorted(
+            (sh.index[0].start, [d.id for d in sh.data.devices()])
+            for sh in x.addressable_shards
+        )
+        assert [o for _, o in owners] == [[d.id] for d in mesh.devices]
+    assert column.to_host_strings(sc.to_column()) == CORPUS

@@ -11,8 +11,8 @@ import re
 import numpy as np
 import pytest
 
-from custrings_tpu import column
-from custrings_tpu.regex import ops as rx
+from custrings import column
+from custrings.regex import ops as rx
 
 S30 = [
     "5", "hej", "\t \n", "12345", "\\", "d", "c:\\Tools", "+27", "1c2",
@@ -97,7 +97,7 @@ def test_find_spans_vs_python(pattern, strs):
     """First-match span parity with re.search (leftmost-first)."""
     col = dev(strs)
     dp = rx.get_program(pattern)
-    from custrings_tpu.ops import layout
+    from custrings.ops import layout
 
     chars, nch = layout.char_matrix(col)
     import jax.numpy as jnp
@@ -230,7 +230,7 @@ def test_octal_and_hex_escape():
 
 
 def test_extract_record_api():
-    from custrings_tpu import nvstrings as nvs
+    from custrings import nvstrings as nvs
 
     pattern = r"Flight:([A-Z]+)(\d+)"
     s = ["ALA-PEK Flight:HU7934", "", None, "Flight:ZZ"]
@@ -263,25 +263,28 @@ def test_replace_multi_tie():
     "[^o]{3,40}\\b\\w+",  # NCCLASS lanes past word 0
 ])
 def test_pallas_nfa_matches_xla(pattern):
-    from custrings_tpu.ops import layout
-    from custrings_tpu.regex.pallas_nfa import PallasNFA
+    """Bit-parallel matcher kernel (interpret mode) vs the XLA engine for
+    programs of at most 32 instructions; longer programs stay on the XLA
+    engine on every route."""
+    from custrings.ops import layout
+    from custrings.regex.pallas_nfa import BitNFA, bit_supported
 
     col = dev(S30)
     chars, nch = layout.char_matrix(col)
     dp = rx.get_program(pattern)
-    nfa = PallasNFA(dp)
+    if not bit_supported(dp):
+        assert not rx.use_bit_kernel(pattern)
+        with pytest.raises(ValueError):
+            BitNFA(dp)
+        return
+    nfa = BitNFA(dp)
     for anchored in (False, True):
         ref = np.asarray(dp.nfa_matches(chars, nch, anchored))
-        got = np.asarray(nfa.matches(chars, nch, anchored))
-        assert ref.tolist() == got.tolist(), (pattern, anchored)
-        if nfa.bits_ok:
-            # .matches dispatches <=32-inst programs to the bit-parallel
-            # kernel; pin BOTH kernels against the XLA engine here
-            for fn in (nfa._matches_bits, nfa._matches_f32):
-                got2 = np.asarray(fn(chars, nch, anchored, False))
-                assert ref.tolist() == got2.tolist(), (
-                    pattern, anchored, fn.__name__,
-                )
+        for ascii in (False, True) if all(
+            s is None or s.isascii() for s in S30
+        ) else (False,):
+            got = np.asarray(nfa.matches(chars, nch, anchored, ascii, True))
+            assert ref.tolist() == got.tolist(), (pattern, anchored, ascii)
 
 
 def test_non_bmp_class_ranges():
@@ -325,14 +328,14 @@ def test_priority_nullable_quantifier_chains():
     corpus = ["1 ", "0b0", "1cac b", "0aa0b", "c b", "0ac0bb1", "b", ""]
     for pat in [r"\d?(\d.c*)*", r"(c*)+([^a]*a?)?", r"(c*)+(b*a?)?"]:
         rx = re.compile(pat)
-        from custrings_tpu.regex.ops import replace_re
+        from custrings.regex.ops import replace_re
 
         got = host(replace_re(dev(corpus), pat, "#"))
         assert got == [ref_replace(rx, c) for c in corpus], (pat, got)
 
 
 def test_longest_safe_gate():
-    from custrings_tpu.regex.ops import get_program
+    from custrings.regex.ops import get_program
 
     assert get_program(r"#\w+").prog.longest_safe        # fast path kept
     assert get_program(r"\w*").prog.longest_safe          # trailing * ok
@@ -345,7 +348,7 @@ def test_length_buckets_parity():
     # on every row; results must be identical either way.
     import os
 
-    from custrings_tpu.ops import layout
+    from custrings.ops import layout
 
     corpus = (["short %d x" % i for i in range(300)]
               + ["the quick brown fox #tag jumps"] * 100
@@ -397,8 +400,8 @@ def test_sentinel_injection_gate():
 def test_chunked_matches_parity(pattern):
     # chunked transfer-matrix engine == vector engine == Python re,
     # across chunk sizes that do and don't divide the padded width
-    from custrings_tpu.ops import layout
-    from custrings_tpu.regex.ops import get_program
+    from custrings.ops import layout
+    from custrings.regex.ops import get_program
 
     corpus = S30 + ["x" * 100 + "Hello world !" + "y" * 80, "world" * 40]
     col = dev(corpus)

@@ -1,7 +1,7 @@
 """Reference replace_multi parity (python/tests/test_replace_multi.py)."""
 
-import custrings_tpu.nvstrings as nvs
-import custrings_tpu.nvtext as nvt
+import custrings.nvstrings as nvs
+import custrings.nvtext as nvt
 
 HSTRS = [
     "the quick brown fox jumps over the lazy dog",

@@ -5,7 +5,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from custrings_tpu.ops import segments
+from custrings.ops import segments
 
 
 def _random_offsets(rng, n_rows, cap):
@@ -62,3 +62,52 @@ def test_per_row_of_prefix():
         [mask[offs[r] : offs[r + 1]].sum() for r in range(n)], np.int32
     )
     assert (got == exp).all()
+
+
+# Prefix scans (segments.cumsum / cummax): the parity cases the removed
+# linear-pass scan kernel was held to, now on the XLA scans.
+
+import pytest  # noqa: E402
+
+
+@pytest.mark.parametrize("n", [1, 7, 128, 1024, 4096, 5000])
+@pytest.mark.parametrize("dtype", [np.int32, np.uint8, np.bool_])
+def test_cumsum_matches_numpy(n, dtype):
+    rng = np.random.default_rng(n)
+    if dtype == np.bool_:
+        x = rng.integers(0, 2, n).astype(np.bool_)
+    elif dtype == np.uint8:
+        x = rng.integers(0, 256, n).astype(np.uint8)
+    else:
+        x = rng.integers(-100000, 100000, n).astype(np.int32)
+    got = segments.cumsum(jnp.asarray(x))
+    want = np.cumsum(x.astype(np.int64)).astype(np.int32)
+    assert got.dtype == jnp.int32
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 128, 1024, 4096, 5000])
+def test_cummax_matches_numpy(n):
+    rng = np.random.default_rng(n + 17)
+    x = rng.integers(-(2**30), 2**30, n).astype(np.int32)
+    got = segments.cummax(jnp.asarray(x))
+    np.testing.assert_array_equal(np.asarray(got), np.maximum.accumulate(x))
+
+
+def test_cumsum_large_values():
+    # prefix totals near the int32 range stay exact
+    x = np.full(4096, 500_000, np.int32)
+    x[::7] = -250_000
+    got = segments.cumsum(jnp.asarray(x))
+    want = np.cumsum(x.astype(np.int64)).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+def test_small_scans():
+    x = jnp.arange(100, dtype=jnp.int32)
+    np.testing.assert_array_equal(
+        np.asarray(segments.cumsum(x)), np.cumsum(np.arange(100))
+    )
+    np.testing.assert_array_equal(
+        np.asarray(segments.cummax(x)), np.arange(100)
+    )

@@ -1,23 +1,19 @@
-"""Parity of the bit-parallel span engine (regex/pallas_spans.py) vs the
+"""Parity of the bit-parallel span kernels (regex/pallas_spans.py) vs the
 min-plus and ordered engines, in Pallas interpret mode on CPU.
 
-The bit path is the production spans executor on TPU for certified
-programs (longest_safe / end_unique); these tests pin its exactness
-against the engines it replaced, including window starts, empty
-matches, and EOS anchors.  The TPU leg re-checks on real hardware
-(tests/tpu/test_hw.py::test_span_bits_vs_minplus_on_chip).
+The bit path is the spans executor on the kernel route (GPU) for
+certified programs (longest_safe / end_unique); these tests pin its
+exactness against the engines it stands beside, including window
+starts, empty matches, and EOS anchors.  tests/test_gpu.py re-checks the
+compiled kernels on the card.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-os.environ.setdefault("CUSTRINGS_SPAN_BITS", "1")  # force on off-TPU
+import jax.numpy as jnp
 
-import jax.numpy as jnp  # noqa: E402
-
-from custrings_tpu.regex.ops import get_program  # noqa: E402
+from custrings.regex.ops import get_program
 
 
 def _mat(texts):
@@ -51,7 +47,7 @@ def test_span_bits_parity(pattern, start):
     chars, lens = _mat(CORPUS)
     N = chars.shape[0]
     sp = jnp.full(N, start, jnp.int32)
-    m1, b1, e1 = sb.single(chars, lens, sp)
+    m1, b1, e1 = sb.single(chars, lens, sp, False, True)
     if dp.prog.longest_safe:
         m2, b2, e2 = dp.nfa_spans(chars, lens, sp)
     else:
@@ -75,15 +71,43 @@ def test_uncertified_patterns_stay_off_bits():
     assert bool(m[0]) and int(b[0]) == 1 and int(e[0]) == 2
 
 
-def test_findall_rides_bits_router():
-    """Multi-match ops through all_spans' round loop with the bit engine
-    forced on (interpret): parity vs Python re."""
+@pytest.fixture
+def kernel_route_interpreted(monkeypatch):
+    """The kernel route, with the kernels run by the Pallas interpreter
+    (the compiled Triton kernels need a GPU)."""
+    from custrings import config
+    from custrings.regex.pallas_nfa import BitNFA
+    from custrings.regex.pallas_spans import SpanBits
+
+    calls = []
+    single, matches = SpanBits.single, BitNFA.matches
+
+    def spy_single(self, chars, lengths, start_pos, ascii=False,
+                   interpret=False):
+        calls.append("spans")
+        return single(self, chars, lengths, start_pos, ascii, True)
+
+    def spy_matches(self, chars, lengths, anchored, ascii=False,
+                    interpret=False):
+        calls.append("matches")
+        return matches(self, chars, lengths, anchored, ascii, True)
+
+    monkeypatch.setattr(config, "kernel_route", lambda platform=None: "kernel")
+    monkeypatch.setattr(SpanBits, "single", spy_single)
+    monkeypatch.setattr(BitNFA, "matches", spy_matches)
+    return calls
+
+
+def test_findall_rides_bits_router(kernel_route_interpreted):
+    """Multi-match ops through all_spans' round loop with the kernel route
+    on (kernels interpreted): parity vs Python re, and the router really
+    took the bit span kernels."""
     import re as pyre
 
     import jax
 
-    from custrings_tpu.column import from_host_strings, to_host_strings
-    from custrings_tpu.regex import ops as rx
+    from custrings.column import from_host_strings, to_host_strings
+    from custrings.regex import ops as rx
 
     lines = [
         "a@b c@d", "the that ththat", "", "x@y@z w@v", "no match",
@@ -105,3 +129,32 @@ def test_findall_rides_bits_router():
             for s in lines
         ]
         assert got == exp, (pat, got, exp)
+    assert "spans" in kernel_route_interpreted
+
+
+def test_contains_takes_bit_kernel_on_kernel_route(kernel_route_interpreted):
+    import re as pyre
+
+    from custrings.column import from_host_strings
+    from custrings.regex import ops as rx
+
+    lines = ["#tag here", "none", None, "x #y_z", ""]
+    got = np.asarray(rx.contains_re(from_host_strings(lines), r"#\w+"))
+    want = [s is not None and bool(pyre.search(r"#\w+", s)) for s in lines]
+    assert got.tolist() == want
+    assert "matches" in kernel_route_interpreted
+
+
+def test_xla_route_keeps_kernels_off(monkeypatch):
+    """On the CPU (XLA route) the span router takes min-plus, never the
+    bit kernels."""
+    from custrings.regex.pallas_spans import SpanBits
+
+    def boom(*a, **k):
+        raise AssertionError("bit kernel on the XLA route")
+
+    monkeypatch.setattr(SpanBits, "single", boom)
+    dp = get_program(r"#\w+")
+    chars, lens = _mat(["a #b", "#", "x"])
+    m, b, e = dp.spans_single(chars, lens, jnp.zeros(3, jnp.int32))
+    assert np.asarray(m).tolist() == [True, False, False]

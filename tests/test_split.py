@@ -5,8 +5,8 @@ pandas semantics (split.cu:89-123, :225-260)."""
 import pandas as pd
 import pytest
 
-from custrings_tpu import column
-from custrings_tpu.ops import split
+from custrings import column
+from custrings.ops import split
 
 S = ["héllo", None, "a_bc_déf", "a__bc", "_ab_cd", "ab_cd_", "", " a b ",
      " a  bbb   c"]
@@ -131,8 +131,8 @@ def test_delim_extents_stream_parity():
     delimiters."""
     import numpy as np
 
-    from custrings_tpu import column
-    from custrings_tpu.ops import split as sp
+    from custrings import column
+    from custrings.ops import split as sp
 
     rng = np.random.default_rng(5)
     strs = [
@@ -171,8 +171,8 @@ def test_split_null_row_owning_bytes():
     import jax.numpy as jnp
     import numpy as np
 
-    from custrings_tpu.column import StringColumn, to_host_strings
-    from custrings_tpu.ops import split as sp
+    from custrings.column import StringColumn, to_host_strings
+    from custrings.ops import split as sp
 
     raw = b"a b|x, ,y|c d"
     offsets = jnp.asarray(np.array([0, 3, 9, 13], np.int32))
@@ -191,8 +191,8 @@ def test_tail_plane_semantics():
     import numpy as np
 
     import jax.numpy as jnp
-    from custrings_tpu.column import StringColumn
-    from custrings_tpu.ops import layout
+    from custrings.column import StringColumn
+    from custrings.ops import layout
 
     raw = b"abcXXdef"
     offsets = jnp.asarray(np.array([0, 3, 5, 8], np.int32))

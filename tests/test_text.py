@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from custrings_tpu import column
-from custrings_tpu.ops import unique
-from custrings_tpu.text import distance, ngram, token
+from custrings import column
+from custrings.ops import unique
+from custrings.text import distance, ngram, token
 
 
 def dev(strs):
@@ -213,7 +213,7 @@ def test_edit_distance_scalar_bucketed():
         return d[-1]
 
     corpus = ["word%d" % i for i in range(300)] + ["x" * 1500 + "puppy"]
-    from custrings_tpu.ops import layout
+    from custrings.ops import layout
 
     col = dev(corpus)
     assert layout.length_buckets(col) is not None
